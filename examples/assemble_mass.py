@@ -5,14 +5,14 @@ use it:
 
 1. describe the element (fiat_tpu.ufl) and convert it (factory);
 2. build a quadrature rule;
-3. tabulate basis values/gradients at the quadrature points on the TPU
-   (one jitted program via BatchedTabulator);
+3. tabulate basis values/gradients at the quadrature points on the
+   device (one jitted program via BatchedTabulator);
 4. contract to the reference-cell mass matrix  M_ij = sum_q w_q phi_i
    phi_j  and stiffness matrix  K_ij = sum_q w_q grad phi_i . grad
-   phi_j  on the MXU;
+   phi_j  as device GEMMs;
 5. optionally shard the quadrature batch over a device mesh
    (fiat_tpu.parallel) -- the contraction's point reduction becomes a
-   psum over ICI.
+   psum across the devices.
 
 Run: python examples/assemble_mass.py
 """

@@ -1,16 +1,16 @@
 """End-to-end example: integral moments and field interpolation on
 device, the two dual-evaluation directions of the engine.
 
-The tabulation engine's physical floor is the 8 B/value pair write of
-the nodal table; consumers that only INTEGRATE against the basis (the
+The tabulation engine's physical floor is the 8 B/value write of the
+nodal table; consumers that only INTEGRATE against the basis (the
 reference's to_riesz / dual_evaluation hot path,
 FIAT/dual_set.py:86-206 and finat/finiteelementbase.py:245-285) never
 need that table:
 
 1. ``moments``: M[i] = sum_q w_q f(x_q) phi_i(x_q) for every basis
-   function of a mixed zoo (macro elements included) -- one Pallas
-   kernel per block: df32 recurrence, pair product with the weighted
-   integrand, and an exact window-sum point reduction
+   function of a mixed zoo (macro elements included) -- the expansion
+   contracted against the weighted integrand first, then one nexp-vector
+   folded through the nodal change of basis
    (fiat_tpu.ops.moments.zoo_moments);
 2. ``interpolation``: u(x_q) = sum_i c_i phi_i(x_q) -- the transpose,
    with the coefficients folded through the nodal change of basis

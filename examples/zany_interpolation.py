@@ -6,8 +6,8 @@ evaluation, the way a form compiler consumes the symbolic layer.
 2. supply the PhysicalGeometry of a distorted cell (the TSFC role);
 3. basis_evaluation(..., coordinate_mapping=...) returns PHYSICAL basis
    tables: the C1 basis transformation (Jacobians, physical normals,
-   edge lengths) is a dense matrix folded into the tabulation on the
-   MXU;
+   edge lengths) is a dense matrix folded into the tabulation as one
+   matmul;
 4. verify by reproducing a physical-frame polynomial from its physical
    derivative DoFs;
 5. dual_evaluation interpolates a function into a Lagrange space and

@@ -1,10 +1,10 @@
-"""fiat_tpu: a TPU-native finite element tabulation framework.
+"""fiat_tpu: a JAX finite element tabulation framework.
 
 A ground-up JAX/XLA rebuild of the capabilities of the FIAT/FInAT/gem
 stack: reference cells, quadrature, orthogonal expansion bases, polynomial
 sets, dual bases, the full finite element zoo, a symbolic (traceable)
 element layer, and fused batched device tabulation -- with tabulation
-expressed as jit-compiled, member-vectorized, MXU-friendly array programs
+expressed as jit-compiled, member-vectorized, matmul-shaped array programs
 instead of per-point numpy loops.
 
 Float64 is enabled at import: element construction (Vandermonde solves,

@@ -431,13 +431,9 @@ class SimplicialComplex(Cell):
         if len(points) == 0:
             return points
         A, b = self.barycentric_map(entity=entity, rescale=rescale)
-        # keep reduced-precision float point batches in their own dtype
-        # (f64 constants would otherwise promote f32 device binning to
-        # emulated f64)
-        dt = getattr(points, "dtype", None)
-        if dt is not None and np.issubdtype(dt, np.floating) \
-                and np.dtype(dt).itemsize < 8:
-            A, b = A.astype(dt), b.astype(dt)
+        # in f64 whatever the points' dtype (the f64 map promotes f32
+        # batches): subcell binning of f32 points stays exact, and an f32
+        # product would run in TF32 on a GPU
         return points @ A.T + b    # @ so traced jnp points dispatch
 
     def compute_bubble(self, points, entity=None):

@@ -85,8 +85,8 @@ def integrated_jacobi_recurrence_coeffs(a, b, n):
 # stacked (num_rows, npts) array and the Jacobi coefficients become static
 # per-row column vectors.  The whole tabulation is O(n * dim) large array
 # operations -- small XLA graphs (fast compiles), bounded live memory, and
-# whole-batch VPU work.  Derivatives come from running the same program on
-# Taylor jets whose components are the stacked arrays.
+# whole-batch elementwise work.  Derivatives come from running the same
+# program on Taylor jets whose components are the stacked arrays.
 
 def _stage_multiindices(length, n, dim):
     """Multi-indices of the given length with sum <= n, ordered by the
@@ -685,28 +685,24 @@ def compute_cell_point_map(ref_el, pts, unique=True, tol=1e-12):
     return out
 
 
-def partition_of_unity_masks(ref_el, pts, unique=True, tol=None, raw=False):
+def partition_of_unity_masks(ref_el, pts, unique=True, tol=1e-12, raw=False):
     """Traceable analogue of the reference's symbolic partition-of-unity
     (expansions.py:732): per-subcell {0,1} masks over a point batch, for
     shape-static macro tabulation on device.
 
-    Distances run on the df32 path (ops/doublefloat.py) when the batch
-    is f64 and the backend preserves error-free transforms: native-f32
-    speed with ~1e-14 absolute accuracy at the facets, so the binning
-    tolerance stays at the host's 1e-12.  (A plain-f32 distance needs
-    tol ~1e-5 above its cancellation noise, and every point within that
-    band of an interior facet picks up O(|jump| * tol) error in
-    derivative tables.)"""
+    Distances run in f64, or on the df32 path (ops/doublefloat.py) when
+    the batch is f64 and the platform's f64 engine is the emulated one
+    (ops.f64_engine) on a backend that keeps error-free transforms
+    exact: f32 speed with ~1e-14 absolute accuracy at the facets.  Either
+    way the binning tolerance is the host's 1e-12: the f64 barycentric
+    map promotes f32 batches (cells.compute_barycentric_coordinates).
+    (A plain-f32 distance would need tol ~1e-5 above its cancellation
+    noise, and every point within that band of an interior facet would
+    pick up O(|jump| * tol) error in derivative tables.)"""
+    from ..ops.doublefloat import df32_live
     top = ref_el.get_topology()
     space_dim = ref_el.get_spatial_dimension()
-    use_ff = False
-    if getattr(pts, "dtype", None) == jnp.float64:
-        from ..ops.doublefloat import eft_safe
-        use_ff = eft_safe()
-    if tol is None:
-        dt = getattr(pts, "dtype", None)
-        tol = 1e-12 if (use_ff or dt == jnp.float64) else 1e-5
-    if use_ff:
+    if getattr(pts, "dtype", None) == jnp.float64 and df32_live():
         from ..ops.doublefloat import ff_l1_distance
         parent = ref_el.get_parent()
         best = ff_l1_distance(pts, *parent.barycentric_map(rescale=True))

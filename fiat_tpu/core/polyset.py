@@ -2,8 +2,8 @@
 
 Behavioural parity with /root/reference/FIAT/polynomial_set.py.  A set is
 ``coeffs[i, (shape...), k]`` against expansion member k; tabulation is a
-single dense contraction ``coeffs . base_vals`` -- the MXU-friendly matmul
-at the centre of the TPU tabulation path.  All component-structured
+single dense contraction ``coeffs . base_vals`` -- the matmul at the
+centre of the device tabulation path.  All component-structured
 coefficient builders share one pattern⊗identity kron construction.
 """
 

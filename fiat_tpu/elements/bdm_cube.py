@@ -5,11 +5,9 @@ Brezzi, Douglas & Marini (1985) and Brezzi, Douglas, Fortin & Marini
 (1987): BDM_j(K) = [P_j(K)^2 + span(curl(x y^{j+1}, x^{j+1} y))] on a
 rectangle.  Tabulation is vectorized lambdify via SympyVectorElement."""
 
-from sympy import binomial
-from sympy import legendre as leg
-
 from ..core.cells import flatten_reference_cube
 from .sympy_vector import SympyVectorElement, cube_geometry
+from .trimmed_serendipity import leg
 
 
 def bdmce_basis(flat_el, degree):
@@ -17,6 +15,7 @@ def bdmce_basis(flat_el, degree):
     tangential Legendre moments plus one curl-augmented function whose
     curl stays in P_{degree-1}; then interior bubbles (reference:
     brezzi_douglas_marini_cube.py:140-213)."""
+    from sympy import binomial
     (dx, dy), (mx, my) = cube_geometry(flat_el)
     bx = dx[0] * dx[1]
     by = dy[0] * dy[1]

@@ -11,16 +11,18 @@ that feed straight into the batched device tabulation path."""
 import numbers
 
 import numpy as np
-import sympy
-from sympy import Array, diff, lambdify, symbols
 
 from ..core.cells import flatten_reference_cube
 from ..core.dualset import DualSet
 from ..core.expansions import mis
 from ..core.finite_element import FiniteElement
 
-x, y, z = symbols("x y z")
-variables = (x, y, z)
+
+def coordinates():
+    """The sympy coordinate symbols (x, y, z).  sympy is imported here,
+    not with the module: only these elements need it."""
+    from sympy import symbols
+    return symbols("x y z")
 
 
 def tri(n):
@@ -38,7 +40,7 @@ def cube_geometry(flat_el):
     dfac, mid = [], []
     for a in range(dim):
         lo, hi = verts[0][a], verts[-1][a]
-        v = variables[a]
+        v = coordinates()[a]
         dfac.append(((hi - v) / (hi - lo), (v - lo) / (hi - lo)))
         mid.append(2 * v - (hi + lo))
     return dfac, mid
@@ -47,6 +49,8 @@ def cube_geometry(flat_el):
 def _symbolize_numbers(exprs):
     """Replace bare numbers with fresh symbols so lambdify broadcasts
     (constant entries would otherwise return scalars)."""
+    import sympy
+    from sympy import symbols
     extra_vars = {}
     out = []
     for e in exprs:
@@ -76,6 +80,7 @@ class SympyVectorElement(FiniteElement):
 
     def __init__(self, ref_el, degree, mapping, formdegree, basis_list,
                  entity_ids):
+        from sympy import Array
         flat_el = flatten_reference_cube(ref_el)
         dim = flat_el.get_spatial_dimension()
         self.fdim = dim
@@ -105,6 +110,8 @@ class SympyVectorElement(FiniteElement):
             f"get_coeffs not implemented for {type(self).__name__}")
 
     def _callable_for(self, alpha):
+        from sympy import diff, lambdify
+        variables = coordinates()
         try:
             return self._tab_cache[alpha]
         except KeyError:

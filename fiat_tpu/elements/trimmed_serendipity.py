@@ -15,10 +15,14 @@ own basis length for degree >= 4.  fiat_tpu derives all entity counts
 from the generated basis, so space_dimension() == number of basis
 functions always."""
 
-from sympy import legendre as leg
-
 from ..core.cells import flatten_reference_cube
 from .sympy_vector import SympyVectorElement, cube_geometry, tri
+
+
+def leg(n, x):
+    """sympy's Legendre polynomial P_n(x), imported on first use."""
+    from sympy import legendre
+    return legendre(n, x)
 
 
 def _rotate(basis):

@@ -1,10 +1,10 @@
 """Double-float (two-f32) arithmetic and the df32 Dubiner recurrence.
 
-TPU has no native f64 VPU: XLA emulates every f64 elementwise op in
-~30 f32 ops, which makes the *recurrence* (not the matmul) the dominant
-cost of the fused f64 tabulation path once the change of basis runs on
-the bf16 MXU (ops/pallas_multiword.py).  This module keeps the whole
-B-side pipeline in native f32:
+The emulated f64 engine ("ozaki", ops.f64_engine) serves platforms
+without f64 units, where XLA emulates every f64 elementwise op in ~30
+f32 ops and the recurrence, not the matmul, dominates the pass once the
+change of basis runs as bf16 products (ops/multiword.py).  This module
+keeps that engine's whole B-side pipeline in native f32:
 
 * error-free transformations (TwoSum, Veltkamp split, TwoProd) give
   ~49-bit "double-float" arithmetic out of paired f32 words -- the
@@ -268,15 +268,23 @@ def eft_safe():
     return _EFT_SAFE_CACHE.setdefault(platform, verdict)
 
 
+def df32_live():
+    """True when the df32 paths run: the platform's f64 engine is the
+    emulated one (ops.f64_engine) and its backend passes the EFT probe.
+    (XLA:GPU passes the probe yet broke the full-size df32 recurrence:
+    on an H100 its tables lost their low word, 4.5e-4 max abs error,
+    PERF.md.)"""
+    from . import f64_engine
+    return f64_engine() == "ozaki" and eft_safe()
+
+
 def supports_ff(es):
-    """True when the expansion set's value tabulation can run on the
-    df32 path (plain Dubiner variant, single cell, EFT-safe backend;
-    unsafe backends fall back to the emulated-f64 recurrence, which on
-    CPU is native and costs nothing)."""
+    """True when the expansion set's value tabulation runs on the df32
+    path: plain Dubiner variant, single cell, and ``df32_live()``.
+    Elsewhere the recurrence runs in f64."""
     from ..core.expansions import PointExpansionSet
     return (es.variant is None and len(es.affine_mappings) == 1
-            and not isinstance(es, PointExpansionSet)
-            and eft_safe())
+            and not isinstance(es, PointExpansionSet) and df32_live())
 
 
 def ff_recip_int(n):
@@ -300,8 +308,9 @@ def ff_l1_distance(pts, A, b):
     barycentric map (A, b): sum of the negative barycentric parts,
     returned as f32 with ~1e-14 ABSOLUTE accuracy near the boundary.
 
-    This replaces both the emulated-f64 distance (slow on TPU) and the
-    plain-f32 distance (1e-7 absolute error mis-bins near-facet points,
+    This replaces both the emulated-f64 distance (slow where f64 is
+    emulated) and the plain-f32 distance (1e-7 absolute error mis-bins
+    near-facet points,
     which corrupts derivative tables of macro elements by |D2 jump| *
     tol).  Cancellation happens in the affine map, so the map runs in
     df32; the tiny result then fits f32 exactly (relative encoding)."""
@@ -325,32 +334,26 @@ def ff_l1_distance(pts, A, b):
 # ---------------------------------------------------------------------------
 # Ozaki slice preparation straight from the pair
 
-def prepare_B_ff(phi_ff, nslices=None, wdtype="bf16"):
+def prepare_B_ff(phi_ff, nslices=None):
     """Fixed window slices + pow2 column scales of an FF tabulation --
     drop-in for ops/multiword.py:prepare_B(phi_f64), with every step in
-    native f32.  ``wdtype='int8'`` emits the 7-bit integer windows
-    (quarter-scaled; see multiword.CHUNK_I8).
+    native f32.
 
     The window subtractions are exact: each slice s carries the leading
     bits of the running hi word (Sterbenz), and the pair renormalises
     with one TwoSum so lo's bits surface once hi is consumed."""
-    from .multiword import resolve_scheme
-    chunk, nslices, _ = resolve_scheme(wdtype, nslices)
+    from .multiword import CHUNK, DEFAULT_SLICES
+    nslices = DEFAULT_SLICES if nslices is None else nslices
     hi, lo = phi_ff
     m = jnp.max(jnp.abs(hi), axis=0, keepdims=True)
     m = jnp.where(m == 0, np.float32(1.0), m)
-    if wdtype == "int8":
-        _mant, e = jnp.frexp(m)
-        sB = jnp.exp2((e + 1).astype(m.dtype))     # max|.| in [1/4, 1/2)
-    else:
-        sB = jnp.exp2(jnp.ceil(jnp.log2(m)))       # exact power of two
+    sB = jnp.exp2(jnp.ceil(jnp.log2(m)))           # exact power of two
     inv = np.float32(1.0) / sB                     # pow2: exact
     rh, rl = hi * inv, lo * inv
     out = []
     for i in range(nslices):
-        scale = np.float32(2.0 ** (chunk * (i + 1)))
+        scale = np.float32(2.0 ** (CHUNK * (i + 1)))
         s = jnp.round(rh * scale) / scale
-        out.append((s * scale).astype(jnp.int8) if wdtype == "int8"
-                   else s.astype(jnp.bfloat16))
+        out.append(s.astype(jnp.bfloat16))
         rh, rl = two_sum(rh - s, rl)
     return out, sB

@@ -1,7 +1,6 @@
 """Sum-factorised moment/interpolation contractions for a fused zoo.
 
-The engine's physical floor for any path that MATERIALISES nodal tables
-is the 8 B/value pair write; integral consumers never need the table:
+Integral consumers never need the nodal table:
 
     M[i] = sum_q w_q phi_i(x_q) f(x_q)
          = sum_k C[i, k] * (sum_q psi_k(x_q) w_q f(x_q))
@@ -14,8 +13,12 @@ Associativity here is exactly gem's sum_factorise optimisation
 contraction (/root/reference/finat/finiteelementbase.py:245-285); the
 reference performs it symbolically, this module by construction.
 
+Both directions follow the tabulator's f64 engine: the native engine
+contracts f64 tables; the emulated one ("ozaki", where its df32 path is
+live) contracts df32 (hi, lo) tables and sums the products in f64.
+
 ``fiat_tpu.parallel.sharding`` shards the same contraction over a
-device mesh (the point reduction becomes a psum over ICI).
+device mesh (the point reduction becomes a psum across the devices).
 """
 
 import jax
@@ -23,166 +26,67 @@ import jax.numpy as jnp
 import numpy as np
 
 
+def _df32(tabulator, points):
+    """True when the tabulator's df32 pair path serves these points."""
+    return tabulator._ff_ok and points.dtype == jnp.float64
+
+
+def _plain_table(tabulator, points, df32):
+    """The order-0 expansion table (nexp, npts): an f64 array, or a
+    df32 (hi, lo) pair."""
+    if df32:
+        from .doublefloat import tabulate_ff
+        return tabulate_ff(tabulator.target_es, tabulator.max_degree, points)
+    sd = points.shape[-1]
+    return tabulator._expansion_tables(points)[(0,) * sd]
+
+
+def _macro_table(prog, points, df32):
+    """A macro side program's masked parent stack (K, npts), as
+    ``_plain_table``."""
+    return prog.b_stack_ff(points, 0) if df32 else prog.b_stack(points, 0)
+
+
+def _contract(table, vec, axis):
+    """Contract ``table`` with ``vec`` over ``axis`` (-1: over points,
+    0: over the expansion).  A df32 pair multiplies word by word; the
+    products are summed in f64."""
+    from .doublefloat import FF, ff_from_f64, ff_mul
+    if not isinstance(table, FF):
+        return table @ vec if axis == -1 else vec @ table
+    v = ff_from_f64(jnp.asarray(vec, jnp.float64), xp=jnp)
+    if axis == 0:
+        v = FF(v.hi.reshape(-1, 1), v.lo.reshape(-1, 1))
+    prod = ff_mul(table, v)
+    return (jnp.sum(prod.hi.astype(jnp.float64), axis=axis)
+            + jnp.sum(prod.lo.astype(jnp.float64), axis=axis))
+
+
 def moment_rows(tabulator, points, wf):
     """Fused moments  M[i] = sum_q phi_i(x_q) wf_q  over every basis row
     of a BatchedTabulator's zoo (plain block + macro side programs, in
     the tabulator's row layout).  ``wf`` is the weighted integrand
-    w_q * f(x_q), shape (npts,).
-
-    On a TPU-like backend the expansion contraction runs on the df32
-    pair path (``_moment_phi_wf_ff``): the fused Pallas slice
-    recurrence emits the window tabulation, the pair reconstructs
-    EXACTLY from the graded windows, and the point reduction is an ff
-    product summed in f64 -- emulated-f64 ADDS only, never an
-    emulated-f64 recurrence or (rows, npts) table (the engine's 8
-    B/value pair-write floor does not apply to integral consumers).
-    The f64 XLA recurrence fallback serves CPU and unsupported
-    expansion sets."""
+    w_q * f(x_q), shape (npts,)."""
     sd = points.shape[-1]
+    df32 = _df32(tabulator, points)
     stacked = jnp.asarray(tabulator.stacked, dtype=jnp.float64)
-    pw = _moment_phi_wf_ff(tabulator, points, wf)
-    if pw is None:
-        base = tabulator._expansion_tables(points)
-        pw = base[(0,) * sd] @ wf               # (nexp,) f64
-    parts = [stacked @ pw]
-    # macro side programs contract their masked-parent PAIR stack (the
-    # value-alpha block of the grouped tall matrix); elements without a
-    # program fall back to the traced f64 expansion
-    macro_parts = {}
-    progs = list(getattr(tabulator, "macro_programs", None) or ())
-    grouped = _macro_moment_group(tabulator)
-    if grouped is not None and getattr(points, "dtype", None) == jnp.float64:
-        kernel, ratios = grouped
-        bws = kernel.moment_rows(points, wf)
-        for prog, bw, ratio in zip(progs, bws, ratios):
-            v = jnp.asarray(prog.tall[:prog.rows], jnp.float64) @ (bw * ratio)
-            for idx, lo, hi in prog.row_slices:
-                macro_parts[idx] = v[lo:hi]
-        progs = []
-    for prog in progs:
-        bw = _macro_phi_wf_ff(prog, points, wf)
-        if bw is not None:
-            v = jnp.asarray(prog.tall[:prog.rows], jnp.float64) @ bw
-            for idx, lo, hi in prog.row_slices:
-                macro_parts[idx] = v[lo:hi]
+    parts = [stacked @ _contract(_plain_table(tabulator, points, df32), wf, -1)]
+    # each macro side program contracts its masked parent stack once
+    # against the value-alpha block of its grouped tall matrix
+    macro = {}
+    for prog in tabulator.macro_programs:
+        bw = _contract(_macro_table(prog, points, df32), wf, -1)
+        v = jnp.asarray(prog.tall[:prog.rows], jnp.float64) @ bw
+        for idx, lo, hi in prog.row_slices:
+            macro[idx] = v[lo:hi]
     for (i, _e), (es, deg, flat) in zip(tabulator.special,
                                         tabulator.special_progs):
-        if i in macro_parts:
-            parts.append(macro_parts[i])
+        if i in macro:
+            parts.append(macro[i])
         else:
             phi_s = es._tabulate(deg, points, order=0)[(0,) * sd]
             parts.append(jnp.asarray(flat, dtype=jnp.float64) @ (phi_s @ wf))
     return jnp.concatenate(parts) if len(parts) > 1 else parts[0]
-
-
-def _pair_from_slices(slices, sB):
-    """EXACT (hi, lo) pair of the tabulation from its graded windows:
-    the windows carry disjoint 8-bit significand ranges, so the
-    fast_two_sum accumulation chain reconstructs phi/sB error-free;
-    the pow2 column scale then multiplies both words exactly."""
-    from .doublefloat import FF, fast_two_sum
-    if slices[0].dtype == jnp.int8:
-        from .multiword import CHUNK_I8
-        vals = [s.astype(jnp.float32) * np.float32(2.0 ** (-CHUNK_I8 * (i + 1)))
-                for i, s in enumerate(slices)]
-    else:
-        vals = [s.astype(jnp.float32) for s in slices]
-    hi, lo = vals[0], jnp.zeros_like(vals[0])
-    for v in vals[1:]:
-        hi, e = fast_two_sum(hi, v)
-        lo = lo + e
-    hi, e = fast_two_sum(hi, lo)
-    return FF(hi * sB, e * sB)
-
-
-def _moment_rec(tabulator):
-    """Cached Pallas slice recurrence for the moment path (bf16 windows;
-    None when the expansion set or backend is unsupported)."""
-    rec = getattr(tabulator, "_moment_rec_cache", "?")
-    if rec != "?":
-        return rec
-    rec = None
-    try:
-        from .doublefloat import supports_ff
-        if jax.default_backend() != "cpu" and supports_ff(tabulator.target_es):
-            from .pallas_recurrence import PallasPairMoments
-            rec = PallasPairMoments(tabulator.target_es,
-                                    tabulator.max_degree)
-    except NotImplementedError:
-        rec = None
-    tabulator._moment_rec_cache = rec
-    return rec
-
-
-def _moment_phi_wf_ff(tabulator, points, wf):
-    """(nexp,) f64 of  sum_q phi_k(x_q) wf_q  via the one-kernel pair
-    moment contraction (pallas_recurrence.PallasPairMoments), or None
-    when unavailable."""
-    if getattr(points, "dtype", None) != jnp.float64:
-        return None
-    rec = _moment_rec(tabulator)
-    if rec is None:
-        return None
-    return rec.moment_rows(points, wf)
-
-
-def _macro_moment_group(tabulator):
-    """Cached ONE-kernel masked pair-moment group over all macro side
-    programs (PallasMaskedPairMoments), or None when the parent
-    expansion sets do not share the fused kernel's preconditions.
-    Returns (kernel, per-program scale ratios)."""
-    cached = getattr(tabulator, "_macro_moment_group_cache", "?")
-    if cached != "?":
-        return cached
-    out = None
-    progs = list(getattr(tabulator, "macro_programs", None) or ())
-    try:
-        from .doublefloat import supports_ff
-        if (progs and jax.default_backend() != "cpu"
-                and all(type(p.parent_es) is type(progs[0].parent_es)
-                        for p in progs)
-                and supports_ff(progs[0].parent_es)):
-            from .pallas_recurrence import PallasMaskedPairMoments
-            rec_deg = max(p.degree for p in progs)
-            t_es = progs[0].parent_es
-            sd = t_es.ref_el.get_spatial_dimension()
-            entries = []
-            for p in progs:
-                ref = p.es.ref_el
-                entries.append({
-                    "nexp": p.nexp_parent,
-                    "maps": [ref.barycentric_map(entity=(sd, c),
-                                                 rescale=True)
-                             for c in p.cells],
-                    "unique": p.es.continuity is not None,  # order 0
-                })
-            parent_map = progs[0].es.ref_el.get_parent().barycentric_map(
-                rescale=True)
-            kernel = PallasMaskedPairMoments(t_es, rec_deg, entries,
-                                             parent_map)
-            ratios = [float(np.asarray(p.parent_es.get_scale(p.degree))
-                            / np.asarray(t_es.get_scale(rec_deg)))
-                      for p in progs]
-            out = (kernel, ratios)
-    except NotImplementedError:
-        out = None
-    tabulator._macro_moment_group_cache = out
-    return out
-
-
-def _macro_phi_wf_ff(prog, points, wf):
-    """(ncells*nexp_p,) f64 masked-parent contraction for one macro side
-    program via its df32 pair stack, or None when unsupported."""
-    from .doublefloat import ff_from_f64, ff_mul, supports_ff
-    if getattr(points, "dtype", None) != jnp.float64:
-        return None
-    if jax.default_backend() == "cpu" or not supports_ff(prog.parent_es):
-        return None
-    pair = prog.b_stack_ff(points, 0)
-    g = ff_from_f64(jnp.asarray(wf, jnp.float64), xp=jnp)
-    prod = ff_mul(pair, g)
-    return (jnp.sum(prod.hi.astype(jnp.float64), axis=-1)
-            + jnp.sum(prod.lo.astype(jnp.float64), axis=-1))
 
 
 _jitted_moment_rows = jax.jit(moment_rows, static_argnums=0)
@@ -214,59 +118,29 @@ def interpolate_rows(tabulator, points, coefficients):
     included) -- the reference's interpolation/point-evaluation
     direction, sum-factorised so no (rows, npts) table is built:
     fold c through the nodal change of basis first (one nexp vector),
-    then evaluate against the expansion.
-
-    On TPU the expansion evaluation rides the pair path: the Pallas
-    slice recurrence + exact window reconstruction give phi as an
-    (hi, lo) pair, the folded coefficient vector enters as an ff pair,
-    and only the small row reduction runs in (emulated) f64."""
-    from .doublefloat import ff_from_f64, ff_mul
+    then evaluate against the expansion."""
     sd = points.shape[-1]
+    df32 = _df32(tabulator, points)
     c = jnp.asarray(coefficients, jnp.float64)
     plain_rows = tabulator.stacked.shape[0]
-    stacked = jnp.asarray(tabulator.stacked, jnp.float64)
-    v = c[:plain_rows] @ stacked                # (nexp,) folded coeffs
-    rec = _moment_rec(tabulator)
-    if rec is not None and getattr(points, "dtype", None) == jnp.float64:
-        slices, sB = rec._apply(points)
-        phi = _pair_from_slices(slices, sB)     # (nexp, npts) pair
-        vf = ff_from_f64(v, xp=jnp)
-        prod = ff_mul(phi, FF_col(vf))
-        out = (jnp.sum(prod.hi.astype(jnp.float64), axis=0)
-               + jnp.sum(prod.lo.astype(jnp.float64), axis=0))
-    else:
-        base = tabulator._expansion_tables(points)
-        out = v @ base[(0,) * sd]
-    # macro side programs: fold through the grouped tall matrices and
-    # evaluate the masked parent stacks (value-alpha block transpose)
-    cursor = plain_rows
-    progs = {}
-    for p in getattr(tabulator, "macro_programs", None) or ():
-        for idx, lo, hi in p.row_slices:
-            progs[idx] = (p, lo, hi)
+    v = c[:plain_rows] @ jnp.asarray(tabulator.stacked, jnp.float64)
+    out = _contract(_plain_table(tabulator, points, df32), v, 0)
+    # macro side programs: gather each program's member coefficients,
+    # fold them through its value-alpha block, evaluate its stack once
+    grouped = {idx: (p, lo, hi) for p in tabulator.macro_programs
+               for idx, lo, hi in p.row_slices}
+    folded = {}
     for (i, _e), (es, deg, flat) in zip(tabulator.special,
                                         tabulator.special_progs):
-        ci = c[cursor:cursor + flat.shape[0]]
-        cursor += flat.shape[0]
-        grouped = progs.get(i)
-        if grouped is not None and getattr(points, "dtype",
-                                           None) == jnp.float64:
-            p, lo, hi = grouped
-            w = jnp.zeros((p.rows,), jnp.float64).at[lo:hi].set(ci)
-            bw = w @ jnp.asarray(p.tall[:p.rows], jnp.float64)
-            # masked parent evaluation via the program's df32 pair stack
-            pair = p.b_stack_ff(points, 0)
-            vf = ff_from_f64(bw, xp=jnp)
-            prod = ff_mul(pair, FF_col(vf))
-            out = out + (jnp.sum(prod.hi.astype(jnp.float64), axis=0)
-                         + jnp.sum(prod.lo.astype(jnp.float64), axis=0))
+        glo, ghi, _shape = tabulator.slices[i]
+        if i in grouped:
+            p, lo, hi = grouped[i]
+            w = folded.get(id(p), jnp.zeros((p.rows,), jnp.float64))
+            folded[id(p)] = w.at[lo:hi].set(c[glo:ghi])
         else:
             phi_s = es._tabulate(deg, points, order=0)[(0,) * sd]
-            out = out + (ci @ jnp.asarray(flat, jnp.float64)) @ phi_s
+            out = out + (c[glo:ghi] @ jnp.asarray(flat, jnp.float64)) @ phi_s
+    for p in tabulator.macro_programs:
+        bw = folded[id(p)] @ jnp.asarray(p.tall[:p.rows], jnp.float64)
+        out = out + _contract(_macro_table(p, points, df32), bw, 0)
     return out
-
-
-def FF_col(v):
-    """An (n,) FF pair viewed as an (n, 1) column for broadcasting."""
-    from .doublefloat import FF
-    return FF(v.hi.reshape(-1, 1), v.lo.reshape(-1, 1))

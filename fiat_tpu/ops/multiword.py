@@ -1,8 +1,9 @@
-"""f64-accurate matmul on the MXU via Ozaki-style multiword splitting.
+"""f64-accurate matmul from bf16 products via Ozaki-style multiword splitting.
 
-TPU v5e has no native f64 MXU: XLA's emulated f64 dot runs ~40x slower
-than the same shape in bf16/f32.  This module implements the Ozaki
-split scheme (Ozaki, Ogita, Oishi & Rump 2012):
+The change-of-basis GEMMs of the emulated f64 engine ("ozaki",
+ops.f64_engine), for platforms whose matrix units have no f64.  This
+module implements the Ozaki split scheme (Ozaki, Ogita, Oishi & Rump
+2012):
 
 * rows of A and columns of B are scaled by powers of two into [1/2, 1);
 * each scaled operand is sliced at FIXED 8-bit windows:
@@ -10,10 +11,10 @@ split scheme (Ozaki, Ogita, Oishi & Rump 2012):
   every slice is an integer multiple of its window and carries <= 8
   significand bits, so it is exactly representable in bf16 and every
   pairwise slice product (16-bit integer at a known scale) accumulates
-  EXACTLY in the MXU's f32 accumulator for K up to 2^8;
+  EXACTLY in an f32 accumulator for K up to 2^8;
 * slice products are grouped by total order t = i + j; each group is
   ONE bf16 matmul (slices concatenated along the contraction axis);
-* the groups are summed in f64 on the VPU and unscaled.
+* the groups are summed in f64 and unscaled.
 
 Groups t <= ORDER keep ~8*(ORDER+2) product bits: ORDER=5 keeps ~56
 (~3e-14 relative measured), comfortably inside the framework's 1e-10
@@ -26,50 +27,17 @@ import jax.numpy as jnp
 
 #: bits per slice window: 8-bit windows are still exact in bf16 (any
 #: k/2^8 with |k| <= 2^8 has <= 8 significand bits) and their 16-bit
-#: pairwise products accumulate exactly in the f32 MXU accumulator for
+#: pairwise products accumulate exactly in an f32 accumulator for
 #: contraction lengths up to 2^(24-16) = 256 (longer contractions chunk)
 CHUNK = 8
 #: keep product groups with i + j <= DEFAULT_ORDER (~8 bits per order:
-#: order 5 keeps ~56 product bits, measured ~3e-14 relative -- and 25%
-#: fewer MXU flops than the former 7-bit/order-6 scheme)
+#: order 5 keeps ~56 product bits, measured ~3e-14 relative)
 DEFAULT_ORDER = 5
 #: slices per operand: slice i only ever multiplies slices j <= order-i,
 #: so indices past the order are dead weight in every group -- computing
 #: or streaming them changes nothing (order+1 slices carry 49 of an
 #: operand's bits; bits below that scale cannot reach any kept product)
 DEFAULT_SLICES = DEFAULT_ORDER + 1
-
-#: int8 window variant (the ORIGINAL Ozaki formulation is integer):
-#: v5e's MXU runs s8 x s8 -> s32 dots at 2x the bf16 rate (394 vs 197
-#: TOPS, measured exactly 2x in a grid kernel) AND the int32
-#: accumulation is exact for any contraction length that fits VMEM --
-#: no 256-column chunking and no in-dot rounding, so the only scheme
-#: error is window truncation.  Windows are 7-bit so every slice value
-#: fits int8: operands scale into [1/4, 1/2) (not [1/2, 1)) so window 0
-#: is <= 64 and every later window is bounded by the half-quantum
-#: rounding residual (<= 64).  7 bits/window needs one more group for
-#: the same coverage: order 6 / 7 slices keeps ~49 exact product bits
-#: at 28 s8 dots = 14 bf16-equivalents vs the bf16 path's 19 (~1.4x
-#: less MXU work) with half the bytes per slice (~1.4x less traffic).
-#: Two pitfalls found by measurement, both fixed in the kernel:
-#: * order 5 / 6 slices truncates at 2^-42 -- 9e-11 on a small zoo,
-#:   too close to the 1e-10 budget;
-#: * the bf16 kernel's tail shortcut (plain f32 adds for groups
-#:   t >= 3) rounds at 2^(-24-7*3) with 7-bit windows -- 7.7e-11 at
-#:   tet8 and ORDER-INDEPENDENT.  With only order+1 dots the int8
-#:   combine TwoSums every group instead (tet8 err 7.7e-11 -> 7.2e-12).
-CHUNK_I8 = 7
-I8_ORDER = 6
-I8_SLICES = I8_ORDER + 1
-
-
-def resolve_scheme(wdtype, nslices=None, order=None):
-    """(chunk_bits, nslices, order) for a window dtype."""
-    if wdtype == "int8":
-        return (CHUNK_I8, I8_SLICES if nslices is None else nslices,
-                I8_ORDER if order is None else order)
-    return (CHUNK, DEFAULT_SLICES if nslices is None else nslices,
-            DEFAULT_ORDER if order is None else order)
 
 
 def _pow2_scale(x, axis, xp=jnp):
@@ -78,15 +46,6 @@ def _pow2_scale(x, axis, xp=jnp):
     m = xp.where(m == 0, 1.0, m)
     e = xp.ceil(xp.log2(m))
     return xp.exp2(e)
-
-
-def _pow2_scale_quarter(x, axis, xp=jnp):
-    """Per-row/column power-of-two scale putting max|x| in [1/4, 1/2)
-    (frexp-exact, no log2): the int8 window headroom."""
-    m = xp.max(xp.abs(x), axis=axis, keepdims=True)
-    m = xp.where(m == 0, 1.0, m)
-    _mant, e = xp.frexp(m)              # m = mant * 2^e, mant in [1/2, 1)
-    return xp.exp2((e + 1).astype(x.dtype))
 
 
 def _fixed_window_slices(x, nslices, xp=jnp):
@@ -101,43 +60,19 @@ def _fixed_window_slices(x, nslices, xp=jnp):
     return out
 
 
-def _fixed_window_slices_i8(x, nslices, xp=jnp):
-    """7-bit windows of quarter-scaled x as int8 integers: window i
-    holds round(r_i * 2^{7(i+1)}) in [-64, 64] (value = k / 2^{7(i+1)});
-    the half-quantum rounding residual bounds every later window."""
-    out = []
-    r = x
-    for i in range(nslices):
-        scale = float(2.0 ** (CHUNK_I8 * (i + 1)))
-        k = xp.round(r * scale)
-        out.append(k.astype(jnp.int8) if xp is jnp else k.astype(np.int8))
-        r = r - k / scale
-    return out
-
-
-def split_scaled_host(A, nslices=None, wdtype="bf16"):
+def split_scaled_host(A, nslices=DEFAULT_SLICES):
     """Host-side preparation of A: (window slices of scaled A, row
-    scale).  ``wdtype='int8'`` uses the 7-bit integer windows."""
-    A = np.asarray(A, dtype=np.float64)
-    if wdtype == "int8":
-        _, nslices, _ = resolve_scheme(wdtype, nslices)
-        sA = np.asarray(_pow2_scale_quarter(A, axis=1, xp=np))
-        return _fixed_window_slices_i8(A / sA, nslices, xp=np), sA
+    scale)."""
     import ml_dtypes
-    _, nslices, _ = resolve_scheme(wdtype, nslices)
+    A = np.asarray(A, dtype=np.float64)
     sA = np.asarray(_pow2_scale(A, axis=1, xp=np))
     slices = _fixed_window_slices(A / sA, nslices, xp=np)
     return [s.astype(ml_dtypes.bfloat16) for s in slices], sA
 
 
-def prepare_B(B, nslices=None, wdtype="bf16"):
+def prepare_B(B, nslices=DEFAULT_SLICES):
     """Device-side split of the right operand, shareable across many
     left operands: (window slices, column scales)."""
-    if wdtype == "int8":
-        _, nslices, _ = resolve_scheme(wdtype, nslices)
-        sB = _pow2_scale_quarter(B, axis=0)
-        return _fixed_window_slices_i8(B / sB, nslices), sB
-    _, nslices, _ = resolve_scheme(wdtype, nslices)
     sB = _pow2_scale(B, axis=0)
     return _fixed_window_slices(B / sB, nslices), sB
 
@@ -192,8 +127,8 @@ def matmul_f64_ozaki(A_slices, sA, B, nslices=DEFAULT_SLICES,
         Bcat = jnp.concatenate([B_slices[j] for _, j in idx], axis=0)
         groups.append(jax.lax.dot(Acat, Bcat,
                                   preferred_element_type=jnp.float32))
-    # two-float (TwoSum) accumulation of the group results on the f32
-    # VPU: the running error term carries the bits below the f32 sum, so
+    # two-float (TwoSum) accumulation of the group results in f32:
+    # the running error term carries the bits below the f32 sum, so
     # only ONE emulated-f64 add (hi+lo) and one f64 multiply (unscale)
     # remain per element -- the f64 combine was ~40% of the whole pass
     s = groups[0]                        # largest group first
@@ -209,7 +144,7 @@ def matmul_f64_ozaki(A_slices, sA, B, nslices=DEFAULT_SLICES,
 
 class MultiwordMatmul:
     """Precomputed-A multiword matmul: ``mm = MultiwordMatmul(A);
-    C = mm(B)`` with f64-level accuracy on the bf16 MXU."""
+    C = mm(B)`` with f64-level accuracy from bf16 products."""
 
     def __init__(self, A, nslices=DEFAULT_SLICES, order=DEFAULT_ORDER):
         self.shape = A.shape

@@ -1,12 +1,12 @@
 """The device tabulation engine.
 
-This is the TPU-native replacement for the reference's per-call numpy
+This is the device replacement for the reference's per-call numpy
 tabulation loop (FIAT/finite_element.py:181, FIAT/polynomial_set.py:68):
 
 * ``ElementTabulator`` compiles one element's ``tabulate(order, points)``
   into a single jitted XLA program: the Dubiner recurrence runs as a fused
-  elementwise (VPU) program over the whole point batch, and the nodal-basis
-  contraction ``coeffs @ phi`` is one dense matmul (MXU).
+  elementwise program over the whole point batch, and the nodal-basis
+  contraction ``coeffs @ phi`` is one dense matmul.
 * ``BatchedTabulator`` fuses MANY elements (sharing a reference cell) into
   ONE program: every element's coefficients are re-expressed in the plain
   orthonormal Dubiner basis of the maximum embedded degree (lower-degree
@@ -15,11 +15,9 @@ tabulation loop (FIAT/finite_element.py:181, FIAT/polynomial_set.py:68):
   [sum(nbf_i * ncomp_i), nexp] x [nexp, npts] matmul.
 
 Precision: tabulation runs in the dtype of the input points; float64 meets
-the 1e-10 reproduction tolerance (TPU f64 is supported), float32/bfloat16
-are available for throughput.
+the 1e-10 reproduction tolerance.  Every dot asks for
+``Precision.HIGHEST``, so float32 tables do not drop to TF32 on a GPU.
 """
-
-from functools import partial
 
 import numpy as np
 import jax
@@ -29,10 +27,8 @@ from ..core import expansions
 
 #: Point-batch tile size: the expansion recurrence is evaluated tile by tile
 #: (jax.lax.map) so the unrolled recurrence's live intermediates stay inside
-#: a bounded working set instead of scaling with the full batch.  Swept on
-#: v5e for the full-zoo f64 block-table path (df32 recurrence + fused
-#: kernels): 8192-25600 are ~15% faster than 2048 (the old optimum for the
-#: emulated-f64 recurrence, whose live set per point was ~8x larger).
+#: a bounded working set instead of scaling with the full batch.  Not yet
+#: swept on the H100 (ROADMAP A4).
 DEFAULT_TILE = 8192
 
 #: recurrence working-set target (expansion members x points) behind the
@@ -40,6 +36,27 @@ DEFAULT_TILE = 8192
 #: proportionally longer tiles (lax.map runs tiles SEQUENTIALLY, so tiny
 #: programs would otherwise pay ~50 kernel dispatches per pass)
 _WORKSET = DEFAULT_TILE * 66
+
+
+def _dot(a, b):
+    """a @ b in the dtype of ``a``, the change-of-basis matrix cast to the
+    points' dtype.  ``b``, an expansion table, follows it: its recurrence
+    constants are f64, so it comes out of the recurrence in f64.  The
+    precision is full: a GPU would otherwise run an f32 dot in TF32
+    (~1e-3 relative)."""
+    return jnp.matmul(a, b.astype(a.dtype),
+                      precision=jax.lax.Precision.HIGHEST)
+
+
+def _engine(matmul):
+    """The f64 engine a tabulator runs: ``matmul`` if given, else the
+    platform's (ops.f64_engine)."""
+    if matmul is None:
+        from . import f64_engine
+        return f64_engine()
+    if matmul not in ("native", "ozaki"):
+        raise ValueError(f"matmul must be 'native' or 'ozaki', not {matmul!r}")
+    return matmul
 
 
 def adaptive_tile(nexp, tile=None):
@@ -75,11 +92,12 @@ class ElementTabulator:
     host API.
     """
 
-    def __init__(self, element, order=0, tile=None,
-                 matmul="ozaki"):
+    def __init__(self, element, order=0, tile=None, matmul=None):
+        """:arg matmul: the f64 engine, 'native' or 'ozaki'; by default
+        the platform's (ops.f64_engine)."""
         self.element = element
         self.order = order
-        self.matmul = matmul
+        self.matmul = _engine(matmul)
         poly_set = element.get_nodal_basis()
         self.coeffs = np.asarray(poly_set.get_coeffs())
         self.expansion_set = poly_set.get_expansion_set()
@@ -87,7 +105,7 @@ class ElementTabulator:
         self.tile = adaptive_tile(
             self.expansion_set.get_num_members(self.embedded_degree), tile)
         self.sd = element.get_reference_element().get_spatial_dimension()
-        if matmul == "ozaki":
+        if self.matmul == "ozaki":
             from .multiword import MultiwordMatmul
             from .doublefloat import supports_ff
             self._mw = MultiwordMatmul(
@@ -117,7 +135,7 @@ class ElementTabulator:
                 from .multiword import prepare_B
                 return {alpha: self._mw.apply(prepare_B(tab))
                         for alpha, tab in base.items()}
-            return {alpha: flat @ tab for alpha, tab in base.items()}
+            return {alpha: _dot(flat, tab) for alpha, tab in base.items()}
 
         out = _tiled_apply(body, points, self.tile)
         return {alpha: vals.reshape(coeffs.shape[:-1] + vals.shape[-1:])
@@ -210,11 +228,7 @@ class MacroSideProgram:
     def b_stack(self, pts, order):
         """Stacked masked parent tabulation (ncells * nexp_parent, npts);
         the mask convention follows the traced-macro engine (unique
-        binning for order 0, averaged multiplicities otherwise).
-
-        The subcell binning runs on the df32 distance path when the
-        backend supports it (native-f32 speed, ~1e-14 facet accuracy;
-        see partition_of_unity_masks) and otherwise in the point dtype."""
+        binning for order 0, averaged multiplicities otherwise)."""
         from ..core.expansions import partition_of_unity_masks
         unique = self.es.continuity is not None and order == 0
         masks = partition_of_unity_masks(self.es.ref_el, pts, unique=unique)
@@ -246,21 +260,10 @@ class MacroSideProgram:
             out = ff_mul(out, ff_recip_int(total.astype(jnp.float32)))
         return out
 
-    #: route the f64 tall GEMM through the multiword bf16 scheme; measured
-    #: ~11 ms faster steady-state on a 21-subcell zoo but ~190 s more
-    #: XLA compile time, so the native dot is the default
-    use_multiword = False
-
     def tables(self, pts, order):
         """{alpha: (rows, npts)} via one tall GEMM."""
-        B = self.b_stack(pts, order)
-        if self.use_multiword and pts.dtype == jnp.float64:
-            if not hasattr(self, "_mw"):
-                from .multiword import MultiwordMatmul
-                self._mw = MultiwordMatmul(self.tall)
-            out = self._mw(B)
-        else:
-            out = jnp.asarray(self.tall, dtype=pts.dtype) @ B
+        out = _dot(jnp.asarray(self.tall, dtype=pts.dtype),
+                   self.b_stack(pts, order))
         r = self.rows
         return {a: out[k * r:(k + 1) * r] for k, a in enumerate(self.alphas)}
 
@@ -275,18 +278,22 @@ class BatchedTabulator:
     """
 
     def __init__(self, elements, order=0, tile=None,
-                 derivs="dmats", matmul="ozaki"):
+                 derivs="dmats", matmul=None, dtype=None):
         """:arg derivs: 'dmats' (default) computes derivative tables as
         extra matmuls against the order-0 expansion (exact spectral
         differentiation; the recurrence runs once, on plain values),
-        'jets' runs the Taylor-jet recurrence (order-proportional VPU
-        work; f64 elementwise is emulated on TPU, so dmats is faster).
-        :arg matmul: 'ozaki' (default) computes f64 change-of-basis
-        matmuls via the multiword bf16 MXU scheme (ops/multiword.py,
-        ~3e-14 relative, ~10x faster than emulated f64 on TPU);
-        'native' uses the platform's f64 dot."""
+        'jets' runs the Taylor-jet recurrence (order-proportional
+        elementwise work).
+        :arg matmul: the f64 engine.  'native' uses the platform's f64
+        recurrence and dot; 'ozaki' the df32 recurrence (where the
+        backend keeps error-free transforms exact) and the multiword
+        bf16 scheme (ops/multiword.py, ~3e-14 relative).  By default the
+        platform's engine (ops.f64_engine).
+        :arg dtype: the dtype points are cast to; by default the
+        caller's."""
         self.derivs = derivs
-        self.matmul = matmul
+        self.matmul = _engine(matmul)
+        self.dtype = dtype
         self._tile_arg = tile
         cells = {e.get_reference_element() for e in elements}
         if len(cells) != 1:
@@ -321,10 +328,6 @@ class BatchedTabulator:
 
         blocks = []
         plain_slices = {}      # element index -> (start, stop, shape)
-        #: element index -> leading target-basis columns its rows can
-        #: touch (a degree-d basis lives in the degree-d morton prefix);
-        #: lets the fused engine bucket rows by contraction width
-        self.plain_nexp = {}
         cursor = 0
         for i, e in enumerate(self.elements):
             if e.is_macroelement():
@@ -332,7 +335,6 @@ class BatchedTabulator:
             ps = e.get_nodal_basis()
             es = ps.get_expansion_set()
             deg = ps.get_embedded_degree()
-            self.plain_nexp[i] = self.target_es.get_num_members(deg)
             coeffs = np.asarray(ps.get_coeffs())
             if (type(es) is type(self.target_es) and es.variant is None
                     and es.ref_el == self.ref_el):
@@ -386,14 +388,7 @@ class BatchedTabulator:
                         for _ in range(ak):
                             M = M @ np.transpose(D[k])
                     self.alpha_mats[alpha] = M
-            # all derivative tables come from the SAME expansion values;
-            # the row-stacked form feeds the fused Pallas kernels
-            # (measured: one tall GEMM on the XLA path is output-bandwidth
-            # bound and ~35% SLOWER than per-alpha matmuls, so the XLA
-            # path keeps per-alpha multiword matmuls sharing one B split)
             self._alpha_order = list(self.alpha_mats)
-            self._alpha_stacked = np.vstack(
-                [self.alpha_mats[a] for a in self._alpha_order])
 
         # macro side programs in the dmats form: one tall GEMM per group
         # of macro elements sharing an expansion set (no per-alpha jets)
@@ -410,6 +405,11 @@ class BatchedTabulator:
                 self.macro_programs.append(
                     MacroSideProgram(es, deg, mem, alphas_all))
 
+        #: the df32 pair paths (recurrence, moments, point values) are
+        #: live: the emulated engine on a backend that keeps error-free
+        #: transforms exact.  Evaluated eagerly: the EFT-safety probe
+        #: jit-compiles, so it cannot run while this tabulator is traced.
+        self._ff_ok = False
         if self.matmul == "ozaki":
             from .multiword import MultiwordMatmul
             from .doublefloat import supports_ff
@@ -418,8 +418,6 @@ class BatchedTabulator:
                             for a, M in self.alpha_mats.items()}
             else:
                 self._mw = {None: MultiwordMatmul(self.stacked)}
-            # eager: the EFT-safety probe jit-compiles, so it cannot run
-            # while this tabulator itself is being traced
             self._ff_ok = supports_ff(self.target_es)
         self._jitted = jax.jit(self._tabulate)
 
@@ -434,9 +432,6 @@ class BatchedTabulator:
 
                 def body(pts):
                     if ff_ok:
-                        # native-f32 df32 recurrence + slicing: the
-                        # emulated-f64 recurrence costs more than the
-                        # bf16 MXU matmuls it feeds
                         phi_p = prepare_B_ff(
                             tabulate_ff(self.target_es, self.max_degree,
                                         pts))
@@ -454,7 +449,7 @@ class BatchedTabulator:
                     base = self.target_es._tabulate_on_cell(
                         self.max_degree, pts, order=0)
                     phi = base[(0,) * self.sd]
-                    return {alpha: M @ phi for alpha, M in mats.items()}
+                    return {alpha: _dot(M, phi) for alpha, M in mats.items()}
         else:
             # jets mode (or order 0): ONE change-of-basis matrix applied
             # to every derivative table of the recurrence
@@ -479,7 +474,7 @@ class BatchedTabulator:
                 def body(pts):
                     base = self.target_es._tabulate_on_cell(
                         self.max_degree, pts, order=self.order)
-                    return {alpha: stacked @ tab
+                    return {alpha: _dot(stacked, tab)
                             for alpha, tab in base.items()}
 
         if not self.special_progs:
@@ -505,7 +500,7 @@ class BatchedTabulator:
                     base = es._tabulate(deg, pts, order=self.order)
                     C = jnp.asarray(flat, dtype=pts.dtype)
                     for alpha, tab in base.items():
-                        parts[alpha].append(C @ tab)
+                        parts[alpha].append(_dot(C, tab))
             return {alpha: jnp.concatenate(blocks, axis=0)
                     for alpha, blocks in parts.items()}
 
@@ -514,7 +509,7 @@ class BatchedTabulator:
     def __call__(self, points):
         """{alpha: (total_rows, npts)} fused tables; use ``unpack`` for
         per-element views."""
-        return self._jitted(jnp.asarray(points))
+        return self._jitted(jnp.asarray(points, self.dtype))
 
     def unpack(self, tables):
         """Split fused tables back into the per-element layout."""

@@ -1,7 +1,7 @@
-"""Multi-chip scaling for batched tabulation.
+"""Multi-device scaling for batched tabulation.
 
 The reference is a single-process numpy library (SURVEY.md §2.5); the
-natural TPU-parallel axis of this workload is the POINT batch (tabulation
+natural parallel axis of this workload is the POINT batch (tabulation
 is embarrassingly parallel over points, while moment/dual contractions
 reduce over points and need an all-reduce).  This module provides:
 
@@ -10,9 +10,11 @@ reduce over points and need an all-reduce).  This module provides:
   sharded across the mesh;
 * ``sharded_tabulate``      -- run any jitted tabulator SPMD over the mesh
   (no communication: outputs stay point-sharded);
-* ``sharded_moments``       -- integral moments  M[i] = sum_q w_q phi_i(x_q)
+* ``make_moment_step``      -- integral moments  M[i] = sum_q w_q phi_i(x_q)
   f(x_q) over a sharded point batch: each device contracts its local shard
-  on the MXU and XLA inserts a psum over the mesh (rides ICI).
+  and XLA inserts a psum over the mesh;
+* ``make_interpolation_step`` -- the transpose (point values), sharded;
+* ``make_moment_step_2d``   -- moments on a (points x rows) mesh.
 """
 
 from functools import partial
@@ -42,9 +44,10 @@ def sharded_tabulate(tabulator, points, mesh, axis="points"):
     return tabulator(points)
 
 
-# sum-factorised moment contraction, shared with the single-device
-# consumer API (contract the small expansion table against the points
-# FIRST; under sharding the inner reduction is what psums over the mesh)
+# the sum-factorised contractions of the single-device consumer API
+# (contract the small expansion table against the points FIRST; under
+# sharding the inner reduction is what psums over the mesh)
+from ..ops.moments import interpolate_rows as _interpolate_rows  # noqa: E402
 from ..ops.moments import moment_rows as _moment_rows  # noqa: E402
 
 
@@ -140,51 +143,15 @@ def make_moment_step_2d(tabulator, mesh, axes=("points", "rows")):
     return step
 
 
-def make_fused_tabulate_step(fused, mesh, axis="points"):
-    """Shard the fused-Ozaki f64 engine (ops/pallas_multiword.py)
-    over the point axis: shard_map runs the Pallas multiword kernels
-    per device on the local point shard -- embarrassingly parallel, no
-    collectives; the block tables come back sharded on their point
-    axis.  ``fused`` is a FusedZooTabulator."""
-    local = jax.shard_map(fused._f64_blocks, mesh=mesh,
-                          in_specs=P(axis, None),
-                          out_specs=P(None, axis),
-                          # pallas_call output shapes carry no
-                          # varying-mesh annotation; the engine is
-                          # per-device pure SPMD
-                          check_vma=False)
-
-    @partial(jax.jit, in_shardings=(NamedSharding(mesh, P(axis, None)),),
-             out_shardings=NamedSharding(mesh, P(None, axis)))
-    def step(points):
-        return local(points)
-    return step
-
-
 def make_interpolation_step(tabulator, mesh, axis="points"):
     """The transpose direction: given coefficients per basis row of the
     fused zoo (macro side programs included), evaluate the field at a
     sharded point batch (no communication; the result stays
     point-sharded)."""
     pspec = NamedSharding(mesh, P(axis, None))
-    plain_rows = tabulator.stacked.shape[0]
 
     @partial(jax.jit, in_shardings=(pspec, None),
              out_shardings=NamedSharding(mesh, P(axis)))
     def step(points, coefficients):
-        # sum-factorised transpose: fold the coefficients through the
-        # nodal change of basis first (one nexp vector), then evaluate
-        # against the expansion -- no (rows, npts) intermediate
-        base = tabulator._expansion_tables(points)
-        sd = points.shape[-1]
-        phi = base[(0,) * sd]                   # (nexp, npts)
-        stacked = jnp.asarray(tabulator.stacked, dtype=points.dtype)
-        out = (coefficients[:plain_rows] @ stacked) @ phi
-        cursor = plain_rows
-        for es, deg, flat in tabulator.special_progs:
-            phi_s = es._tabulate(deg, points, order=0)[(0,) * sd]
-            C = jnp.asarray(flat, dtype=points.dtype)
-            out = out + (coefficients[cursor:cursor + flat.shape[0]] @ C) @ phi_s
-            cursor += flat.shape[0]
-        return out
+        return _interpolate_rows(tabulator, points, coefficients)
     return step

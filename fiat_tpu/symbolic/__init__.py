@@ -4,7 +4,7 @@ array programs (the FInAT-equivalent; SURVEY.md §2.4).
 Where FInAT emits GEM expression DAGs for the TSFC form compiler, fiat_tpu
 elements return arrays -- host numpy for static points, traced jnp arrays
 inside ``jax.jit`` -- so XLA plays gem's role (CSE, fusion, sum
-factorisation) and Pallas/MXU the code generator's."""
+factorisation) and its GPU backend the code generator's."""
 
 from .base import FiniteElementBase, entity_support_dofs          # noqa: F401
 from .point_set import (AbstractPointSet, FacetPointSet,          # noqa: F401

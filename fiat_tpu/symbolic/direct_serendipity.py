@@ -10,7 +10,6 @@ Being physically defined, the element needs no reference mapping at all:
 ``mapping() == "physical"``."""
 
 import numpy as np
-import sympy as sp
 
 from ..core.cells import UFCQuadrilateral
 from ..core.expansions import mis
@@ -21,6 +20,7 @@ from .sympy2array import evaluate_sympy
 
 
 def _vertex_symbols():
+    import sympy as sp
     return np.asarray(list(zip(sp.symbols("x:4"), sp.symbols("y:4"))))
 
 
@@ -108,6 +108,7 @@ def dsr_basis(ct, r, vs, xx):
     direct_serendipity.py:256-478): polynomials of degree r plus two
     rational functions, nodal at vertices, edge lattice points, and an
     interior triangular lattice."""
+    import sympy as sp
     ts, ns, xstars, lams = _edge_frame(ct, vs, xx)
     bubble = np.prod(lams)
 
@@ -239,6 +240,7 @@ class DirectSerendipity(DirectlyDefinedElement, FiniteElementBase):
     quadrilaterals."""
 
     def __init__(self, cell, degree):
+        import sympy  # noqa: F401 -- the basis is built in sympy
         cite("Arbogast2017")
         assert isinstance(cell, UFCQuadrilateral)
         self._cell = cell
@@ -288,6 +290,7 @@ class DirectSerendipity(DirectlyDefinedElement, FiniteElementBase):
     @property
     def _basis(self):
         if self._basis_cache is None:
+            import sympy as sp
             vs = _vertex_symbols()
             xx = np.asarray(sp.symbols("x,y"))
             ct = self.cell.get_topology()

@@ -8,7 +8,6 @@ sees ordinary array ops.  Used by runtime symbolic elements
 at traced physical geometry."""
 
 import numpy as np
-import sympy
 
 
 def evaluate_sympy(expr, bindings, cache=None):
@@ -35,6 +34,7 @@ def _eval(node, bindings, cache):
 
 
 def _eval_node(node, bindings, cache):
+    import sympy
     if isinstance(node, (int, float)):
         return float(node)
     if isinstance(node, sympy.Symbol):

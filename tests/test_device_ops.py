@@ -127,23 +127,6 @@ def test_batched_flop_count():
     assert bt.flop_count(1000) > 0
 
 
-def test_pallas_fused_tabulation_interpret():
-    """The Mosaic-friendly fused kernel (interpret mode on CPU) matches
-    the XLA engine to f32 accuracy in 2D and 3D."""
-    from fiat_tpu.ops.pallas_tabulate import PallasZooTabulator
-    for dim in (2, 3):
-        cell = cl.ufc_simplex(dim)
-        els = [fe.Lagrange(cell, p) for p in (1, 3, 5)] + \
-            [fe.RaviartThomas(cell, 2)]
-        bt = BatchedTabulator(els, order=0)
-        pt = PallasZooTabulator(bt, tile=256, interpret=True)
-        pts = RNG.random((700, dim)) / 2
-        fused = np.asarray(pt(pts))
-        ref = np.asarray(bt(pts)[(0,) * dim])
-        err = np.abs(fused - ref).max() / np.abs(ref).max()
-        assert err < 5e-6, (dim, err)
-
-
 def test_moment_step_2d_mesh():
     """2D (points x rows) mesh: data-parallel reduction + row-sharded
     ('tensor parallel') moments match the host contraction."""
@@ -198,7 +181,7 @@ def test_multiword_ozaki_matmul():
 
 
 def test_batched_tabulator_ozaki_vs_native():
-    """The default ozaki matmul path matches the native-f64 path to the
+    """The Ozaki matmul engine matches the native-f64 engine to the
     framework tolerance."""
     els = [fe.Lagrange(T, p) for p in (2, 6, 10)]
     bo = BatchedTabulator(els, order=1, matmul="ozaki")
@@ -212,7 +195,7 @@ def test_batched_tabulator_ozaki_vs_native():
 
 
 def test_tet_zoo_device_accuracy():
-    """3D zoo through the device engine (ozaki f64) matches host
+    """3D zoo through the device engine (f64) matches host
     tabulation within the framework tolerance."""
     T3 = cl.ufc_simplex(3)
     zoo = [fe.Lagrange(T3, p) for p in (1, 4)] + \
@@ -245,7 +228,7 @@ def test_macro_elements_in_batched_zoo():
 
 
 def test_moment_step_includes_macro_elements():
-    """ADVICE r1: moment/interpolation steps must cover macro side
+    """Moment/interpolation steps must cover macro side
     programs, not just the fused plain block."""
     els = [fe.Lagrange(T, 2), fe.HsiehCloughTocher(T, 3), fe.Lagrange(T, 1)]
     bt = BatchedTabulator(els, order=0)
@@ -277,8 +260,7 @@ def test_moment_step_includes_macro_elements():
 def test_moment_step_2d_macro():
     """Macro elements ride the 2D (points x rows) mesh: the side
     program's masked-parent stack joins the row-sharded GEMM, and the
-    row-sharded moments match the host contraction (r4 VERDICT #6 --
-    the plain-block-only restriction is gone)."""
+    row-sharded moments match the host contraction."""
     from fiat_tpu.parallel.sharding import make_moment_step_2d, zoo_mesh
     els = [fe.Lagrange(T, 2), fe.HsiehCloughTocher(T, 3),
            fe.QuadraticPowellSabin6(T)]
@@ -300,7 +282,7 @@ def test_moment_step_2d_macro():
 
 
 def test_multiword_ozaki_long_contraction():
-    """ADVICE r1: K > 1024 contractions must keep group-0 exactness by
+    """K > 1024 contractions must keep group-0 exactness by
     splitting the contraction axis."""
     from fiat_tpu.ops.multiword import MultiwordMatmul
     rng = np.random.default_rng(3)
@@ -313,7 +295,7 @@ def test_multiword_ozaki_long_contraction():
 
 
 def test_batched_ozaki_jets_path():
-    """ADVICE r1: matmul='ozaki' with derivs='jets' and order>0 must run
+    """matmul='ozaki' with derivs='jets' and order>0 must run
     the multiword path (previously silently fell back to native f64)."""
     els = [fe.Lagrange(T, 3), fe.Lagrange(T, 5)]
     bt = BatchedTabulator(els, order=1, derivs="jets", matmul="ozaki")
@@ -326,352 +308,19 @@ def test_batched_ozaki_jets_path():
                                atol=1e-10), alpha
 
 
-def test_fused_multiword_pallas_interpret():
-    """The fused Ozaki kernel (pallas_multiword) matches the XLA multiword
-    path and the exact product; pairs recombine exactly."""
-    from fiat_tpu.ops.pallas_multiword import FusedMultiwordMatmul, FusedZooTabulator
-    rng = np.random.default_rng(5)
-    A = rng.standard_normal((700, 66)) * np.exp(rng.standard_normal((700, 1)))
-    B = rng.standard_normal((66, 900))
-    fm = FusedMultiwordMatmul(A, interpret=True, row_block=256, point_tile=256)
-    C = np.asarray(fm(jnp.asarray(B)))
-    rel = np.abs(C - A @ B).max() / np.abs(A @ B).max()
-    assert rel < 1e-12, rel
-
-    els = [fe.Lagrange(T, p) for p in (2, 4)] + [fe.Nedelec(T, 1), fe.CubicHermite(T)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256, point_tile=256)
-    pts = RNG.random((150, 2)) / 2
-    fused = fz(jnp.asarray(pts))
-    xla = bt(jnp.asarray(pts))
-    for a in xla:
-        assert np.allclose(np.asarray(fused[a]), np.asarray(xla[a]),
-                           atol=1e-11), a
-
-
-def test_fused_zoo_macro_side_programs_interpret():
-    from fiat_tpu.ops.pallas_multiword import FusedZooTabulator
-    els = [fe.Lagrange(T, 3), fe.HsiehCloughTocher(T, 3)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256, point_tile=256)
-    pts = RNG.random((100, 2)) / 2
-    fused = fz(jnp.asarray(pts))
-    for el, tab in zip(els, bt.unpack(fused)):
-        host = el.tabulate(1, pts)
-        for a in host:
-            assert np.allclose(np.asarray(tab[a]).reshape(host[a].shape),
-                               host[a], atol=1e-10), (type(el).__name__, a)
-
-
-def test_fused_multiword_int8_windows_interpret():
-    """wdtype='int8': 7-bit integer windows on the s8 MXU path match the
-    exact product (kernel) and the host tabulation (zoo, incl. a macro
-    side program riding the int8 masked kernel)."""
-    from fiat_tpu.ops.pallas_multiword import (FusedMultiwordMatmul,
-                                               FusedZooTabulator)
-    rng = np.random.default_rng(7)
-    A = rng.standard_normal((500, 66)) * np.exp(rng.uniform(-8, 8, (500, 1)))
-    B = rng.standard_normal((66, 700)) * np.exp(rng.uniform(-6, 6, (1, 700)))
-    ref = (A.astype(np.longdouble) @ B.astype(np.longdouble)
-           ).astype(np.float64)
-    fm = FusedMultiwordMatmul(A, interpret=True, wdtype="int8",
-                              row_block=256, point_tile=256)
-    assert fm.nslices == 7 and fm.order == 6
-    assert fm.A_slices[0].dtype == jnp.int8
-    got = np.asarray(fm(jnp.asarray(B)))
-    scale = np.abs(A).max(1)[:, None] * np.abs(B).max(0)[None, :] * 66
-    assert (np.abs(got - ref) / scale).max() < 1e-13
-
-    els = [fe.Lagrange(T, 3), fe.RaviartThomas(T, 2),
-           fe.HsiehCloughTocher(T, 3)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, wdtype="int8",
-                           row_block=256, point_tile=256)
-    pts = RNG.random((120, 2)) / 2
-    fused = fz(jnp.asarray(pts))
-    for el, tab in zip(els, bt.unpack(fused)):
-        host = el.tabulate(1, pts)
-        for a in host:
-            assert np.allclose(np.asarray(tab[a]).reshape(host[a].shape),
-                               host[a], atol=2e-10), (type(el).__name__, a)
-
-
-@pytest.mark.parametrize("wdtype", ["bf16", "int8"])
-@pytest.mark.parametrize("mxu_assembly", [True, False])
-def test_fused_masked_multiword_matches_explicit_B(wdtype, mxu_assembly):
-    """FusedMaskedMultiword (B assembled in VMEM from shared slice
-    prefixes x {0,1} mask rows) equals the plain fused kernel on the
-    explicitly masked, per-cell-expanded B -- for both window dtypes
-    and both assembly forms (one-hot MXU expansion / piecewise)."""
-    from fiat_tpu.ops.multiword import prepare_B
-    from fiat_tpu.ops.pallas_multiword import (FusedMaskedMultiword,
-                                               FusedMultiwordMatmul)
-    rng = np.random.default_rng(7)
-    nexp, npts = 10, 300
-    pieces = [(0, 10), (1, 10), (2, 6), (3, 6), (4, 6)]
-    K = sum(n for _, n in pieces)
-    A = rng.standard_normal((24, K))
-    phi = rng.standard_normal((nexp, npts))
-    masks = (rng.random((5, npts)) < 0.5).astype(np.float64)
-
-    fm = FusedMaskedMultiword(A, pieces, interpret=True, wdtype=wdtype,
-                              row_block=256, point_tile=256)
-    fm.mxu_assembly = mxu_assembly
-    slices, sB = prepare_B(jnp.asarray(phi), fm.nslices, wdtype=wdtype)
-    hi, lo = jax.jit(lambda s, c, m: fm.apply_pair_masked(s, c, m))(
-        slices, sB, jnp.asarray(masks))
-    got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-
-    B = np.vstack([masks[m] * phi[:n] for m, n in pieces])
-    ref = FusedMultiwordMatmul(A, interpret=True, wdtype=wdtype,
-                               row_block=256, point_tile=256)
-    hi2, lo2 = jax.jit(lambda b: ref.apply_pair(prepare_B(b, ref.nslices,
-                                                          wdtype=wdtype)))(
-        jnp.asarray(B))
-    want = np.asarray(hi2, np.float64) + np.asarray(lo2, np.float64)
-    assert np.allclose(got, want, atol=1e-13)
-    assert np.allclose(got, A @ B, atol=1e-9 * np.abs(A @ B).max())
-
-
-def test_fused_zoo_merged_macro_matches_per_program_interpret():
-    """The merged masked macro kernel and the per-program fallback give
-    identical element tables (same zoo, merged toggled off)."""
-    from fiat_tpu.ops.pallas_multiword import FusedZooTabulator
-    els = [fe.Lagrange(T, 3), fe.HsiehCloughTocher(T, 3),
-           fe.QuadraticPowellSabin6(T)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256,
-                           point_tile=256)
-    assert fz.macro_merged is not None
-    pts = jnp.asarray(RNG.random((90, 2)) / 2)
-    merged = {a: [np.asarray(x) for x in v]
-              for a, v in fz.block_tables(pts).items()}
-    fz.macro_merged = None
-    fz._jit_blocks = jax.jit(fz._f64_blocks)
-    perprog = {a: [np.asarray(x) for x in v]
-               for a, v in fz.block_tables(pts).items()}
-    for a in perprog:
-        for x, y in zip(merged[a], perprog[a]):
-            assert np.allclose(x, y, atol=1e-12), a
-
-
-def test_fused_zoo_block_tables_interpret():
-    """block_tables + FusedZooTabulator.unpack match the concatenated
-    layout and the host tabulation (incl. macro side programs)."""
-    from fiat_tpu.ops.pallas_multiword import FusedZooTabulator
-    els = [fe.Lagrange(T, 3), fe.Nedelec(T, 2), fe.HsiehCloughTocher(T, 3)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256, point_tile=256)
-    pts = RNG.random((120, 2)) / 2
-    blocks = {a: [np.asarray(x) for x in v]
-              for a, v in fz.block_tables(jnp.asarray(pts)).items()}
-    for el, tab in zip(els, fz.unpack(blocks)):
-        host = el.tabulate(1, pts)
-        for a in host:
-            assert np.allclose(np.asarray(tab[a]).reshape(host[a].shape),
-                               host[a], atol=1e-10), (type(el).__name__, a)
-
-
-def test_fused_engine_sharded_8_devices():
-    """The fused-Ozaki Pallas engine runs SPMD over the 8-device points
-    mesh via shard_map (interpret mode on the CPU mesh), matching the
-    host tabulation."""
-    from fiat_tpu.ops.pallas_multiword import FusedZooTabulator
-    from fiat_tpu.parallel.sharding import (make_fused_tabulate_step,
-                                            points_mesh, shard_points)
-    els = [fe.Lagrange(T, 3), fe.RaviartThomas(T, 2)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256, point_tile=128)
-    mesh = points_mesh()
-    step = make_fused_tabulate_step(fz, mesh)
-    pts = RNG.random((16 * 8, 2)) / 2
-    blocks = step(shard_points(jnp.asarray(pts), mesh))
-    per = fz.unpack({a: [np.asarray(x) for x in v]
-                     for a, v in blocks.items()})
-    for el, tab in zip(els, per):
-        host = el.tabulate(1, pts)
-        for a in host:
-            assert np.allclose(np.asarray(tab[a]).reshape(host[a].shape),
-                               host[a], atol=1e-10), (type(el).__name__, a)
-
-
-def test_pallas_slice_recurrence_interpret():
-    """Plumbing check of the fused recurrence+slice kernel (interpret).
-
-    On XLA:CPU the error-free transforms are corrupted by FMA
-    contraction (see doublefloat.eft_safe), so only f32-level accuracy
-    is checkable here; the pair-accurate (1e-13) validation runs on
-    real TPU hardware (recorded in the module docstring)."""
-    from fiat_tpu.core.expansions import ExpansionSet
-    from fiat_tpu.ops.pallas_recurrence import PallasSliceRecurrence
-    es = ExpansionSet(T)
-    rec = PallasSliceRecurrence(es, 7, interpret=True, tile=256)
-    pts = RNG.random((300, 2)) * 0.4
-    slices, sB = rec(jnp.asarray(pts))
-    want = np.asarray(es._tabulate_on_cell(7, pts, order=0)[(0, 0)])
-    got = sum(np.asarray(s, np.float64) for s in slices) * np.asarray(sB, np.float64)
-    rel = np.abs(got - want).max() / np.abs(want).max()
-    assert rel < 1e-5, rel
-    assert slices[0].dtype == jnp.bfloat16
-
-    # int8 window emission: integer slices at their window quanta
-    rec8 = PallasSliceRecurrence(es, 7, interpret=True, tile=256,
-                                 wdtype="int8")
-    slices8, sB8 = rec8(jnp.asarray(pts))
-    assert slices8[0].dtype == jnp.int8
-    assert rec8.nslices == 7
-    got8 = sum(np.asarray(s, np.float64) * 2.0 ** (-7 * (i + 1))
-               for i, s in enumerate(slices8)) * np.asarray(sB8, np.float64)
-    rel8 = np.abs(got8 - want).max() / np.abs(want).max()
-    assert rel8 < 1e-5, rel8
-    assert int(max(np.abs(np.asarray(s)).max() for s in slices8)) <= 64
-
-
 def test_batched_zoo_degree0_embedding():
     """P0/DG0 embed into a higher-degree fused zoo with the correct
     scale ratio (the expansion normalisation is degree-dependent:
     1 at degree 0, sqrt(1/|K|) past it)."""
-    from fiat_tpu.ops.pallas_multiword import FusedZooTabulator
     els = [fe.P0(T), fe.DiscontinuousLagrange(T, 0), fe.Lagrange(T, 2)]
     bt = BatchedTabulator(els, order=1)
     pts = RNG.random((40, 2)) / 2
-    for engine in (lambda p: bt.unpack({a: np.asarray(v)
-                                        for a, v in bt(p).items()}),):
-        per = engine(jnp.asarray(pts))
-        for el, tab in zip(els, per):
-            host = el.tabulate(1, pts)
-            for a in host:
-                assert np.allclose(np.asarray(tab[a]).reshape(host[a].shape),
-                                   host[a], atol=1e-10), (type(el).__name__, a)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256, point_tile=128)
-    per = fz.unpack({a: [np.asarray(x) for x in v]
-                     for a, v in fz.block_tables(jnp.asarray(pts)).items()})
+    per = bt.unpack({a: np.asarray(v) for a, v in bt(jnp.asarray(pts)).items()})
     for el, tab in zip(els, per):
         host = el.tabulate(1, pts)
         for a in host:
             assert np.allclose(np.asarray(tab[a]).reshape(host[a].shape),
-                               host[a], atol=1e-6), (type(el).__name__, a)
-
-
-def test_fused_kernel_long_contraction_exactness():
-    """K > 256 contractions keep group-0 exact accumulation (the 8-bit
-    windows' 16-bit products overflow the f32 accumulator past 256
-    terms, so the kernel chunks group 0 into the TwoSum chain)."""
-    from fiat_tpu.ops.pallas_multiword import FusedMultiwordMatmul
-    rng = np.random.default_rng(11)
-    A = rng.standard_normal((300, 310)) * np.exp(rng.standard_normal((300, 1)))
-    B = rng.standard_normal((310, 260))
-    fm = FusedMultiwordMatmul(A, interpret=True, row_block=256,
-                              point_tile=256)
-    C = np.asarray(fm(jnp.asarray(B)))
-    rel = np.abs(C - A @ B).max() / np.abs(A @ B).max()
-    assert rel < 1e-12, rel
-
-
-def test_pallas_f32_macro_zoo_interpret():
-    """The f32 fused engine covers macro zoo members: masked parent
-    tabulation + HIGHEST MXU contraction matches the host tables to f32
-    accuracy over the c1+macro zoo (VERDICT r2 #7)."""
-    from fiat_tpu.ops.pallas_tabulate import PallasZooTabulator
-    els = [fe.CubicHermite(T), fe.Morley(T), fe.HsiehCloughTocher(T, 3),
-           fe.QuadraticPowellSabin6(T)]
-    bt = BatchedTabulator(els, order=1)
-    pt = PallasZooTabulator(bt, tile=256, interpret=True)
-    pts = RNG.random((300, 2)) / 2
-    tables = pt.tables(pts)
-    for el, tab in zip(els, bt.unpack(
-            {a: np.asarray(v) for a, v in tables.items()})):
-        host = el.tabulate(1, pts)
-        for a in host:
-            scale = np.abs(np.asarray(host[a])).max() + 1.0
-            err = np.abs(np.asarray(tab[a]).reshape(np.shape(host[a]))
-                         - np.asarray(host[a])).max() / scale
-            assert err < 5e-5, (type(el).__name__, a, err)
-
-
-def test_pallas_f32_variant_kernels_interpret():
-    """Bubble/dual expansion variants run on the f32 Pallas kernel (the
-    variant recurrence shares the stage structure; bubble's C0 recovery
-    matrix folds into the change of basis)."""
-    from types import SimpleNamespace
-    from fiat_tpu.core import expansions
-    from fiat_tpu.ops.pallas_tabulate import PallasZooTabulator
-    for dim in (2, 3):
-        cell = cl.ufc_simplex(dim)
-        for variant in ("bubble", "dual"):
-            es = expansions.ExpansionSet(cell, variant=variant)
-            degree = 5
-            nexp = es.get_num_members(degree)
-            shim = SimpleNamespace(target_es=es, sd=dim, max_degree=degree,
-                                   alpha_mats={}, stacked=np.eye(nexp),
-                                   special_progs=[], special=[], order=0)
-            pt = PallasZooTabulator(shim, tile=256, interpret=True)
-            pts = RNG.random((260, dim)) / 2
-            fused = np.asarray(pt(pts))
-            host = np.asarray(es.tabulate(degree, pts))
-            err = (np.abs(fused - host).max()
-                   / (np.abs(host).max() + 1.0))
-            assert err < 5e-6, (dim, variant, err)
-
-
-def test_fused_zoo_pair_surfaces_interpret():
-    """pair_tables / pair_blocks + unpack_pairs agree with the f64
-    surfaces exactly (hi + lo IS the f64 table)."""
-    from fiat_tpu.ops.pallas_multiword import FusedZooTabulator
-    els = [fe.Lagrange(T, p) for p in (1, 4)] + [fe.Nedelec(T, 1)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256,
-                           point_tile=256)
-    pts = RNG.random((120, 2)) / 2
-    f64 = fz(jnp.asarray(pts))
-    pairs = fz.pair_tables(jnp.asarray(pts))
-    plain_rows = bt.stacked.shape[0]
-    for a, (hi, lo) in pairs.items():
-        combined = (np.asarray(hi, np.float64)
-                    + np.asarray(lo, np.float64))
-        assert np.array_equal(combined, np.asarray(f64[a])[:plain_rows]), a
-
-    per_pair = fz.unpack_pairs(
-        jax.tree_util.tree_map(np.asarray, fz.pair_blocks(jnp.asarray(pts))),
-        len(pts))
-    per_f64 = fz.unpack({a: [np.asarray(x) for x in blocks]
-                         for a, blocks in fz.block_tables(
-                             jnp.asarray(pts)).items()})
-    for ea, eb in zip(per_pair, per_f64):
-        for a in eb:
-            assert np.array_equal(np.asarray(ea[a]), np.asarray(eb[a])), a
-
-
-def test_fused_zoo_degree_buckets_interpret():
-    """Mixed-degree zoos split into width buckets; unpack still maps
-    every element to its exact host tables."""
-    from fiat_tpu.ops.pallas_multiword import (FusedZooTabulator,
-                                               _plan_buckets)
-    # the planner splits the full-zoo width histogram (measured round 3:
-    # four buckets) but keeps tiny zoos fused (fixed per-kernel cost)
-    full_hist = {3: 18, 6: 24, 10: 40, 15: 72, 21: 130, 28: 250,
-                 36: 220, 45: 260, 55: 180, 66: 198}
-    caps = _plan_buckets(full_hist, 3, 5, 6, 8)
-    assert len(caps) >= 2 and caps[-1] == 66
-    assert _plan_buckets({3: 3, 45: 45}, 3, 5, 6, 8) == [45]
-
-    els = [fe.Lagrange(T, 1), fe.Lagrange(T, 8), fe.Nedelec(T, 1),
-           fe.DiscontinuousLagrange(T, 4)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True, row_block=256,
-                           point_tile=256)
-    assert [b.K for b in fz.buckets] == sorted(b.K for b in fz.buckets)
-    assert sum(b.rows for b in fz.buckets) == bt.stacked.shape[0]
-    pts = RNG.random((90, 2)) / 2
-    per = fz.unpack({a: [np.asarray(x) for x in blocks]
-                     for a, blocks in fz.block_tables(
-                         jnp.asarray(pts)).items()})
-    for el, tab in zip(els, per):
-        host = el.tabulate(1, pts)
-        for a in host:
-            assert np.allclose(
-                np.asarray(tab[a]).reshape(np.shape(host[a])),
-                np.asarray(host[a]), atol=1e-11), (type(el).__name__, a)
+                               host[a], atol=1e-10), (type(el).__name__, a)
 
 
 def test_zoo_moments_match_explicit_contraction():
@@ -697,172 +346,10 @@ def test_zoo_moments_match_explicit_contraction():
         assert np.allclose(m, want, atol=1e-12), type(el).__name__
 
 
-def test_bernstein_features_interpret():
-    """Plumbing check of the Bernstein feature kernel (interpret).
-
-    Like the recurrence-kernel test above: XLA:CPU corrupts the
-    error-free transforms (FMA contraction, literal-constant folds in
-    the algebraic simplifier -- see doublefloat.eft_safe), so only
-    f32-level accuracy is checkable here; the pair-accurate validation
-    ran on real TPU (2.9e-11 end to end, module docstring)."""
-    from fiat_tpu.core.expansions import ExpansionSet
-    from fiat_tpu.ops.pallas_bernstein import (PallasBernsteinFeatures,
-                                               _bernstein_host)
-    for sd, deg in ((1, 6), (2, 7), (3, 4)):
-        cell = cl.ufc_simplex(sd)
-        es = ExpansionSet(cell)
-        lam = RNG.dirichlet(np.ones(sd + 1), 300)
-        pts = lam @ np.asarray(cell.get_vertices())
-        feat = PallasBernsteinFeatures(es, deg, interpret=True, tile=256)
-        slices, sB = feat(jnp.asarray(pts))
-        got = sum(np.asarray(s, np.float64) for s in slices) \
-            * np.asarray(sB, np.float64)
-        ref = _bernstein_host(cell, deg, pts)
-        rel = np.abs(got - ref).max() / np.abs(ref).max()
-        assert rel < 1e-5, (sd, deg, rel)
-        assert slices[0].dtype == jnp.bfloat16
-
-
-def test_bernstein_conversion_exact():
-    """bernstein_conversion reproduces the scaled Dubiner tabulation
-    from the host Bernstein basis to ~1e-12 (longdouble Gram
-    projection), and the xla_f64 fallback matches the host formula."""
-    from fiat_tpu.core.expansions import ExpansionSet
-    from fiat_tpu.ops.pallas_bernstein import (PallasBernsteinFeatures,
-                                               bernstein_conversion,
-                                               _bernstein_host)
-    for sd, deg in ((2, 10), (3, 8)):
-        cell = cl.ufc_simplex(sd)
-        es = ExpansionSet(cell)
-        lam = RNG.dirichlet(np.ones(sd + 1), 400)
-        pts = lam @ np.asarray(cell.get_vertices())
-        M = np.asarray(bernstein_conversion(es, deg), np.float64)
-        B = _bernstein_host(cell, deg, pts)
-        Phi = np.asarray(es.tabulate(deg, pts))[:len(M)]
-        assert np.abs(M @ B - Phi).max() < 1e-11, (sd, deg)
-        feat = PallasBernsteinFeatures(es, deg, interpret=True)
-        xf = np.asarray(feat.xla_f64(jnp.asarray(pts)))
-        assert np.abs(xf - B).max() < 1e-12 * np.abs(B).max() + 1e-14
-
-
-def test_fused_zoo_bernstein_features_xla_fallback():
-    """features='bernstein' on a single-bucket zoo: the folded-matrix
-    engine matches the host tabulation through the XLA f64 fallback
-    (the Pallas kernel path needs real TPU; _prepared falls back to
-    xla_f64 features on CPU-incompatible dtypes).  Checked via the
-    interpret=False construction being refused gracefully on CPU --
-    here we fold the matrix by hand and compare."""
-    from fiat_tpu.core.expansions import ExpansionSet
-    from fiat_tpu.ops.pallas_bernstein import (PallasBernsteinFeatures,
-                                               bernstein_conversion)
-    tet = cl.ufc_simplex(3)
-    el = fe.Lagrange(tet, 4)
-    bt = BatchedTabulator([el], order=1)
-    es = ExpansionSet(tet)
-    M = np.asarray(bernstein_conversion(es, 4), np.float64)
-    feat = PallasBernsteinFeatures(es, 4, interpret=True)
-    lam = RNG.dirichlet(np.ones(4), 120)
-    pts = lam @ np.asarray(tet.get_vertices())
-    B = np.asarray(feat.xla_f64(jnp.asarray(pts)))
-    host = el.tabulate(1, pts)
-    for a, mat in bt.alpha_mats.items():
-        A2 = np.asarray(np.asarray(mat, np.longdouble)
-                        @ M.astype(np.longdouble), np.float64)
-        got = A2 @ B
-        assert np.allclose(got.reshape(host[a].shape), host[a],
-                           atol=1e-10), a
-
-
-def test_macro_oneshot_kernel_interpret():
-    """Plumbing check of the ONE-launch macro engine (interpret mode):
-    in-kernel ff binning masks + parent recurrence + masked dots +
-    multiplicity reciprocal.  On XLA:CPU the error-free transforms are
-    corrupted by FMA contraction (doublefloat.eft_safe), so only
-    f32-level accuracy is checkable here; the pair-accurate (1e-13)
-    validation runs on real TPU hardware (recorded in STATUS.md r5)."""
-    from fiat_tpu.ops.pallas_multiword import (FusedMacroOneShot,
-                                               FusedZooTabulator)
-    els = [fe.CubicHermite(T), fe.HsiehCloughTocher(T, 3),
-           fe.QuadraticPowellSabin6(T)]
-    bt = BatchedTabulator(els, order=1)
-    fz = FusedZooTabulator(bt, interpret=True)
-    # interpret construction leaves the one-shot off the default path;
-    # build it by hand from the same merged-program geometry
-    t_es = bt.target_es
-    rec_deg = max(p.degree for p in bt.macro_programs)
-    sd = 2
-    geom = []
-    for (prog, r0, r1) in fz._merged_rows:
-        ref = prog.es.ref_el
-        geom.append({"maps": [ref.barycentric_map(entity=(sd, c),
-                                                  rescale=True)
-                              for c in prog.cells],
-                     "unique": (prog.es.continuity is not None
-                                and bt.order == 0),
-                     "rows": (r0, r1)})
-    parent_map = bt.macro_programs[0].es.ref_el.get_parent(
-        ).barycentric_map(rescale=True)
-    rows_t = sum(p.tall.shape[0] for p in bt.macro_programs)
-    K_t = sum(p.K for p in bt.macro_programs)
-    A = np.zeros((rows_t, K_t))
-    pieces = []
-    r0c = c0 = mrow = 0
-    for p in bt.macro_programs:
-        ratio = float(np.asarray(p.parent_es.get_scale(p.degree))
-                      / np.asarray(t_es.get_scale(rec_deg)))
-        A[r0c:r0c + p.tall.shape[0], c0:c0 + p.K] = ratio * p.tall
-        for _c in p.cells:
-            pieces.append((mrow, p.nexp_parent))
-            mrow += 1
-        r0c += p.tall.shape[0]
-        c0 += p.K
-    scale = float(np.asarray(t_es.get_scale(rec_deg, cell=0)))
-    osk = FusedMacroOneShot(A, pieces, geom, parent_map, sd, rec_deg,
-                            scale, interpret=True, wdtype="bf16",
-                            point_tile=256)
-    pts = RNG.random((300, 2))
-    pts = pts / (pts.sum(1)[:, None] + 1e-9) * RNG.random((300, 1))
-    hi, lo = jax.jit(lambda q: osk.apply_pair_points(q))(jnp.asarray(pts))
-    got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-    worst = 0.0
-    for (prog, r0, r1) in fz._merged_rows:
-        r = prog.rows
-        for k, a in enumerate(prog.alphas):
-            blk = got[r0 + k * r:r0 + (k + 1) * r]
-            for idx, lo_, hi_ in prog.row_slices:
-                el = bt.elements[idx]
-                glo, ghi, _shape = bt.slices[idx]
-                want = np.asarray(el.tabulate(1, pts)[a]).reshape(
-                    ghi - glo, -1)
-                worst = max(worst, np.abs(blk[lo_:hi_] - want).max())
-    assert worst < 1e-5, worst     # EFT-corrupted CPU bound; TPU: 1e-13
-
-
-def test_moment_pair_reconstruction_exact():
-    """_pair_from_slices rebuilds the window content EXACTLY from the
-    graded bf16 windows (disjoint 8-bit significand ranges;
-    fast_two_sum chain is pure adds, immune to FMA contraction) -- the
-    pair matches phi to the ~48-bit window budget (2^-48 ~ 3.6e-15
-    relative), the same budget as the fused engine's B operand."""
-    from fiat_tpu.ops.moments import _pair_from_slices
-    from fiat_tpu.ops.multiword import prepare_B
-    rng = np.random.default_rng(11)
-    phi = rng.standard_normal((12, 200)) * np.exp(
-        rng.uniform(-8, 8, (1, 200)))
-    slices, sB = prepare_B(jnp.asarray(phi), None)
-    pair = _pair_from_slices([jnp.asarray(s) for s in slices],
-                             np.asarray(sB, np.float32))
-    got = (np.asarray(pair.hi, np.float64)
-           + np.asarray(pair.lo, np.float64))
-    rel = np.abs(got - phi).max() / np.abs(phi).max()
-    assert rel < 1e-14, rel
-
-
 def test_moment_rows_macro_grouping():
     """moment_rows routes macro elements through their grouped side
-    programs when the ff path is live, and the f64 fallback otherwise;
-    both must match the per-element host contraction (this CPU run
-    exercises the fallback + the program row-slice bookkeeping)."""
+    programs; the result must match the per-element host contraction
+    (the program row-slice bookkeeping)."""
     from fiat_tpu.ops import moments as mo
     els = [fe.Lagrange(T, 3), fe.HsiehCloughTocher(T, 3),
            fe.CubicHermite(T), fe.QuadraticPowellSabin6(T)]
@@ -883,8 +370,7 @@ def test_moment_rows_macro_grouping():
 def test_interpolate_rows_transpose():
     """interpolate_rows (the dual of moment_rows: coefficients ->
     field values) matches the per-element host contraction, macro
-    elements included (CPU run exercises the f64 fallback; the pair
-    path is validated on TPU, STATUS r5)."""
+    elements included."""
     from fiat_tpu.ops import moments as mo
     els = [fe.Lagrange(T, 4), fe.HsiehCloughTocher(T, 3),
            fe.CubicHermite(T)]
@@ -902,69 +388,3 @@ def test_interpolate_rows_transpose():
         want += c[lo:hi] @ tab
     assert np.abs(u - want).max() < 1e-12
 
-
-def test_pallas_pair_moments_interpret():
-    """Plumbing check of the one-kernel pair moment contraction
-    (interpret mode; EFT-corrupted on XLA:CPU so f32-level tolerance --
-    the pair-accurate validation runs on TPU, STATUS r5)."""
-    from fiat_tpu.core.expansions import ExpansionSet
-    from fiat_tpu.ops.pallas_recurrence import PallasPairMoments
-    es = ExpansionSet(T)
-    m = PallasPairMoments(es, 6, interpret=True, tile=256)
-    rng = np.random.default_rng(13)
-    npts = 700
-    pts = rng.random((npts, 2)) / 2
-    wf = rng.random(npts) - 0.5
-    got = np.asarray(jax.jit(m.moment_rows)(jnp.asarray(pts),
-                                            jnp.asarray(wf)))
-    phi = np.asarray(es._tabulate_on_cell(6, pts, order=0)[(0, 0)])
-    want = phi @ wf
-    rel = np.abs(got - want).max() / np.abs(want).max()
-    assert rel < 1e-5, rel          # EFT-corrupted CPU bound; TPU ~1e-12
-
-
-def test_pallas_masked_pair_moments_interpret():
-    """Plumbing check of the grouped masked (macro) moment kernel:
-    in-kernel binning + per-cell window reduction vs the host masked
-    contraction (interpret mode, f32-level tolerance)."""
-    from fiat_tpu.ops.pallas_recurrence import PallasMaskedPairMoments
-    els = [fe.Lagrange(T, 2), fe.HsiehCloughTocher(T, 3),
-           fe.QuadraticPowellSabin6(T)]
-    bt = BatchedTabulator(els, order=0)
-    progs = bt.macro_programs
-    assert progs
-    rec_deg = max(p.degree for p in progs)
-    t_es = progs[0].parent_es
-    entries = []
-    for p in progs:
-        ref = p.es.ref_el
-        entries.append({"nexp": p.nexp_parent,
-                        "maps": [ref.barycentric_map(entity=(2, c),
-                                                     rescale=True)
-                                 for c in p.cells],
-                        "unique": p.es.continuity is not None})
-    parent_map = progs[0].es.ref_el.get_parent().barycentric_map(
-        rescale=True)
-    kernel = PallasMaskedPairMoments(t_es, rec_deg, entries, parent_map,
-                                     interpret=True, tile=256)
-    rng = np.random.default_rng(17)
-    npts = 600
-    pts = rng.random((npts, 2))
-    pts = pts / (pts.sum(1)[:, None] + 1e-9) * rng.random((npts, 1))
-    wf = rng.random(npts) - 0.5
-    bws = jax.jit(kernel.moment_rows)(jnp.asarray(pts), jnp.asarray(wf))
-    from fiat_tpu.core.expansions import partition_of_unity_masks
-    for p, bw, ratio in zip(progs, bws, (
-            float(np.asarray(p.parent_es.get_scale(p.degree))
-                  / np.asarray(t_es.get_scale(rec_deg)))
-            for p in progs)):
-        masks = partition_of_unity_masks(p.es.ref_el, jnp.asarray(pts),
-                                         unique=p.es.continuity is not None)
-        phi = np.asarray(p.parent_es._tabulate_on_cell(
-            p.degree, pts, order=0)[(0, 0)])
-        want = np.concatenate([
-            (np.asarray(masks[pos]) * phi) @ wf
-            for pos, _c in enumerate(p.cells)])
-        got = np.asarray(bw) * ratio
-        rel = np.abs(got - want).max() / (np.abs(want).max() + 1e-30)
-        assert rel < 1e-5, rel      # EFT-corrupted CPU bound; TPU ~1e-12

@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """Full-zoo DEVICE parity sweep: every simplex Ciarlet/macro instance of
-the parity-sweep spec list, tabulated through the fused TPU engine
-(ops.tabulate.BatchedTabulator + ops.pallas_multiword.FusedZooTabulator,
-the pair-native surface) and compared against the host float64
-tabulation of the SAME element.
+the parity-sweep spec list, tabulated through the device engine
+(ops.device_tabulator) and compared against the host float64 tabulation
+of the SAME element.
 
 This closes the loop the CPU test suite cannot: the suite proves the
 host path against the reference (tests/test_parity_sweep.py), the bench
@@ -48,16 +47,15 @@ def main():
     # AlfeldC2's macro change-of-basis matrix carries ~4.4e4 entries that
     # cancel down to O(20) tables (cond ~1e8 C2-constrained space, the
     # same conditioning behind its 2e-9 host-vs-reference bound in
-    # tests/test_parity_sweep.py): the engine's ~1e-13 RELATIVE pair
-    # accuracy on the intermediates lands at ~3e-9 ABSOLUTE here.
+    # tests/test_parity_sweep.py): ~1e-13 RELATIVE accuracy on the
+    # intermediates lands at ~3e-9 ABSOLUTE here.
     family_atol = {"AlfeldC2": 5e-9}
 
     import jax
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     from test_nodality_sweep import SPECS, _build, _label
-    from fiat_tpu.ops.tabulate import BatchedTabulator
-    from fiat_tpu.ops.pallas_multiword import FusedZooTabulator
+    from fiat_tpu.ops import device_tabulator
 
     print("device:", jax.devices()[0], flush=True)
 
@@ -90,8 +88,7 @@ def main():
         dpts = jnp.asarray(pts)
         entries = by_dim[sd]
         # anchor each chunk with a plain element (macro-only zoos are
-        # rejected by BatchedTabulator) and keep chunks degree-sorted so
-        # bucket spreads stay tight
+        # rejected by BatchedTabulator) and keep chunks degree-sorted
         entries.sort(key=lambda t: t[1].get_nodal_basis()
                      .get_embedded_degree() if t[1].is_macroelement()
                      is False else t[1].degree())
@@ -104,9 +101,9 @@ def main():
                 zoo = [fe.Lagrange(zoo[0].get_reference_element(), 1)] + zoo
                 anchor = 1
             try:
-                bt = BatchedTabulator(zoo, order=args.order)
-                fz = FusedZooTabulator(bt)
-                per = fz.unpack_pairs(fz.pair_blocks(dpts), len(pts))
+                bt = device_tabulator(zoo, order=args.order)
+                per = bt.unpack({a: np.asarray(t)
+                                 for a, t in bt(dpts).items()})
             except Exception as exc:
                 for s, _e in chunk:
                     failures.append((_label(s),
